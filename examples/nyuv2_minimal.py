@@ -20,6 +20,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
+from mimo_unet_tpu.utils import enable_compile_cache
+
 
 def main():
     parser = argparse.ArgumentParser()
@@ -28,6 +30,7 @@ def main():
     parser.add_argument("--dataset_dir", type=str, default=None,
                         help="optional real NYUv2 dir with depth_train.h5")
     args = parser.parse_args()
+    enable_compile_cache()
 
     from mimo_unet_tpu.data.core import iterate_batches
     from mimo_unet_tpu.tasks import MimoUnetTask

@@ -1,10 +1,10 @@
-"""mimo_unet_tpu — a TPU-native probabilistic MIMO U-Net framework.
+"""mimo_unet_tpu — a probabilistic MIMO U-Net framework in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the PyTorch
+A from-scratch JAX/XLA rebuild of the capabilities of the PyTorch
 reference implementation of "Probabilistic MIMO U-Net: Efficient and Accurate
 Uncertainty Estimation for Pixel-wise Regression" (ICCV 2023 UnCV workshop).
 
-Design stance (TPU-first, not a translation):
+Design stance (not a line-by-line translation):
   * NHWC tensor layout everywhere; the MIMO subnetwork axis ``S`` is a
     ``jax.vmap``-batched parameter axis, not a Python loop over modules.
   * Single fused XLA program per train/eval step; all state (params, batch
@@ -12,9 +12,10 @@ Design stance (TPU-first, not a translation):
     carried through pure functions so the step is one ``jit``.
   * Data parallelism via ``jax.sharding`` over a device mesh: the batch axis
     is sharded, parameters replicated, and XLA inserts the collectives.
-  * Hot ops get Pallas kernels (see ``mimo_unet_tpu.ops.pallas``).
+  * No hand-written kernels: convolutions go to XLA (cuDNN on the GPU) and
+    XLA fuses BatchNorm, ReLU and the loss around them.
 
-Reference parity map (reference = antonbaumann/MIMO-Unet @ /root/reference):
+Reference parity map (reference = antonbaumann/MIMO-Unet):
   losses           <-> mimo/losses.py
   loss_buffer      <-> mimo/models/mimo_components/loss_buffer.py
   transforms       <-> mimo/models/utils.py

@@ -1,7 +1,9 @@
 """ctypes bindings for the native batch-assembly kernels (gather.cc).
 
-Compiled on first use with g++ (cached under the package dir; falls back to
-pure numpy silently if no toolchain is available).  See gather.cc for why
+Compiled on first use with g++ into ``build/libmimo_gather-<hash>.so``,
+keyed on a hash of gather.cc so that only a build of this very source is
+ever loaded; falls back to pure numpy silently if no toolchain is
+available.  See gather.cc for why
 this exists: the host batch-slicing memcpy is the input pipeline's hot path
 and numpy does it single-threaded.
 """
@@ -9,6 +11,7 @@ and numpy does it single-threaded.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -18,9 +21,15 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "gather.cc")
-# build/ is not a package: keeps pkgutil/import machinery from mistaking
-# the plain-C library for a CPython extension module
-_LIB_PATH = os.path.join(_HERE, "build", "libmimo_gather.so")
+
+
+def _lib_path() -> str:
+    # build/ is not a package: keeps pkgutil/import machinery from mistaking
+    # the plain-C library for a CPython extension module
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(_HERE, "build", f"libmimo_gather-{digest}.so")
+
 
 _lock = threading.Lock()
 _lib = None
@@ -29,15 +38,19 @@ _tried = False
 DEFAULT_THREADS = min(os.cpu_count() or 1, 16)
 
 
-def _build() -> Optional[str]:
-    os.makedirs(os.path.dirname(_LIB_PATH), exist_ok=True)
+def _build(path: str) -> Optional[str]:
+    """Compile gather.cc to ``path`` (via a temporary name, so a
+    concurrent loader never sees a half-written library)."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
     cmd = [
         "g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread",
-        "-o", _LIB_PATH, _SRC,
+        "-o", tmp, _SRC,
     ]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        return _LIB_PATH
+        os.replace(tmp, path)
+        return path
     except Exception:
         return None
 
@@ -49,7 +62,9 @@ def get_lib():
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        path = _LIB_PATH if os.path.exists(_LIB_PATH) else _build()
+        path = _lib_path()
+        if not os.path.exists(path):
+            path = _build(path)
         if path is None:
             return None
         try:

@@ -10,7 +10,7 @@ mimo/tasks/depth/nyuv2_datamodule.py:11-130:
   * The reference's val split re-uses depth_train.h5 with shuffle_on_load
     (a documented quirk, nyuv2_datamodule.py:40-44) — preserved for parity.
 
-TPU-first: normalization happens once, vectorized, at load (float32 NHWC
+Normalization happens once, vectorized, at load (float32 NHWC
 arrays ready for zero-copy batch slicing), not per item.
 """
 
@@ -32,12 +32,10 @@ def load_nyuv2_depth(
     seed: Optional[int] = None,
     host_dtype: str = "float32",
 ) -> ArrayDataset:
-    """``host_dtype="uint8"`` (TPU extension, requires ``normalize``): keep
+    """``host_dtype="uint8"`` (extension, requires ``normalize``): keep
     the raw uint8 arrays on the host; the /255 runs on-device inside the
     jitted step (data/core.py device_normalize).  4x less host RAM, host
-    copy and H2D transfer — on this single-core host the float32 batch
-    assembly otherwise dominates the step time
-    (experiments/exp_pipeline_overlap.py)."""
+    copy and H2D transfer than float32."""
     import h5py
 
     with h5py.File(dataset_path, "r") as h5:
@@ -155,6 +153,6 @@ class NYUv2DepthDataModule(DataModule):
         parser.add_argument(
             "--host_dtype", type=str, default="float32",
             choices=["float32", "uint8"],
-            help="TPU extension: uint8 keeps raw bytes on the host and "
+            help="Extension: uint8 keeps raw bytes on the host and "
                  "normalizes on-device (4x less host work and transfer)")
         return parent_parser

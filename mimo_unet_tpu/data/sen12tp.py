@@ -25,7 +25,7 @@ Native contract:
     [-30, 0] dB for VV / [-40, 0] dB for VH, reflectances to [0, 1e4],
     indices to [-1, 1] rescaled to [0, 1]).
 
-TPU-first: the window index is a flat integer array; a batch of patches is
+The window index is a flat integer array; a batch of patches is
 one vectorized gather from the (RAM-resident) tile stack — no per-item
 Python in the hot path.
 """

@@ -7,7 +7,7 @@ scripts/test/test_nyuv2_depth.py:26-170, artifact list Readme.md:87-94):
   _epistemic_vars.npy, _metrics.pkl (per-pixel dataframe),
   _precision_recall.csv, _calibration.csv
 
-TPU-first differences: FGSM + forward run as one jitted program per batch
+Differences from the reference: FGSM + forward run as one jitted program per batch
 shape; the calibration ppf sweep is one vectorized numpy/scipy expression
 instead of a multiprocessing pool (test_nyuv2_depth.py:160-163).
 """
@@ -115,12 +115,8 @@ def make_predictions_evidential(
 
         if epsilon > 0.0:
             from mimo_unet_tpu.eval.fgsm import fgsm_attack
-            from mimo_unet_tpu.models.fast_path import ct_disabled
 
-            # gradient through the XLA path: the eval CT kernels carry no
-            # JVP rule (see eval/fgsm.py)
-            with ct_disabled():
-                grad = jax.grad(nll)(image)
+            grad = jax.grad(nll)(image)
             image = fgsm_attack(image, epsilon, grad)
         out, _ = task.forward(params, model_state, image, train=False)
         return image, out

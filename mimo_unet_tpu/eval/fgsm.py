@@ -37,13 +37,7 @@ def make_fgsm_fn(ensemble, epsilon: float):
             return loss_fn(p1, p2, label_rep)
 
         if epsilon > 0.0:
-            # the eval CT kernels are not differentiable (no JVP rule);
-            # trace the gradient through the XLA path — the final
-            # prediction below still runs on the CT fast path
-            from mimo_unet_tpu.models.fast_path import ct_disabled
-
-            with ct_disabled():
-                grad = jax.grad(nll)(image)
+            grad = jax.grad(nll)(image)
             image = fgsm_attack(image, epsilon, grad)
         p1, p2 = ensemble.raw_forward(image, rng)
         return image, p1, p2

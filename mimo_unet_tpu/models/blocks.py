@@ -79,12 +79,11 @@ def double_conv_apply(
     ``pair=(xa, xb)``: the first conv consumes the channel concat of two
     prepadded tensors WITHOUT materializing it — ``conv1(cat([xa, xb])) ==
     conv1_a(xa) + conv1_b(xb)`` with the weights split on input channels.
-    Skipping the concat removes a full HBM round-trip of the widest
-    activation in every Up block (measured: the concat alone costs ~4.7 ms
-    of the 8.3 ms up3 glue at B=128 — experiments/exp_core_glue.py).
-    Requires groups == 1; ``x`` is ignored."""
+    Skipping the concat removes a full memory round-trip of the widest
+    activation in every Up block.  Requires groups == 1; ``x`` is
+    ignored."""
     # train-mode BN cancels the conv bias analytically: skip the bias-add
-    # HBM pass and fold the bias into the BN running mean instead
+    # memory pass and fold the bias into the BN running mean instead
     # (ops/norm.py::batch_norm fold_conv_bias)
     fold = train
     b1_fold = params["conv1"]["b"] if fold else None
@@ -243,18 +242,17 @@ def up_apply(
         from mimo_unet_tpu.ops.conv import reflect_pad1
 
         x1 = upsample_bilinear_x2_align_corners(x1, pad_output=True)
-        # (feeding the skip unpadded through the fused reflect conv was
-        # measured as a LOSS here — it breaks the split-add fusion;
-        # 72.0 -> 74.8 ms at B=128 — so the skip stays pre-padded)
+        # (the skip stays pre-padded: feeding it unpadded through the
+        # fused reflect conv breaks the split-add fusion)
         x2 = reflect_pad1(x2)
         if split_skip_conv:
             # split-conv fast path: conv1 consumes the (prepadded) skip
             # and upsampled tensors directly — the [x2, x1] concat
             # (reference components.py:119) folds into the weight split
-            # and never materializes.  Used by the shared core under the
-            # CT fast path (+60 patches/s end-to-end); the vmapped
-            # per-subnetwork decoders lower the split badly under XLA, so
-            # it is opt-in (experiments/exp_core_glue.py).
+            # and never materializes.  Used by the shared core; it is
+            # opt-in because the vmapped per-subnetwork decoders lowered
+            # the split badly on the machine this was first tuned on (to
+            # be priced on the GPU, ROADMAP Queue 3 item 2).
             y, conv_state = double_conv_apply(
                 params["conv"], state["conv"], x1, train=train,
                 dropout_rate=dropout_rate, dropout_key=dropout_key,

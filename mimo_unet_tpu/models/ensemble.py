@@ -10,7 +10,7 @@ Rebuilt from reference mimo/models/ensemble.py:35-115:
     predictions concatenate on the subnetwork axis,
   * return raw (p1, p2) or the uncertainty decomposition.
 
-TPU-first serving shape (vs the reference's Python loops, ensemble.py:95-105):
+Serving shape (vs the reference's Python loops, ensemble.py:95-105):
 MC passes fold into the batch axis of ONE forward (dropout masks are drawn
 per sample, so a tiled batch yields independent MC samples), and
 consecutive same-architecture members run as ONE vmapped program over
@@ -59,12 +59,9 @@ class Ensemble:
         self.loss_fn = self.members[0][0].loss_fn
 
         mc = max(1, monte_carlo_steps)
-        self._member_fns = [
-            self._build_member_fn(task, mc) for task, _, _ in self.members
-        ]
-
         # consecutive same-architecture members -> one vmapped program over
-        # stacked params (concat order preserved: runs are consecutive)
+        # stacked params (concat order preserved: runs are consecutive);
+        # each run is (first member index, jitted fn, params, model_state)
         self._runs = []
         i = 0
         while i < len(self.members):
@@ -73,31 +70,24 @@ class Ensemble:
             while j < len(self.members) and self._signature(
                     self.members[j][0]) == sig:
                 j += 1
-            self._runs.append((i, j))
+            task, params, mstate = self.members[i]
+            if j - i > 1:
+                fn = self._build_stacked_fn(task, mc, j - i)
+                params, mstate = (
+                    jax.tree.map(lambda *xs: jnp.stack(xs),
+                                 *[self.members[k][n] for k in range(i, j)])
+                    for n in (1, 2))
+            else:
+                fn = jax.jit(self._member_fn_body(task, mc))
+            self._runs.append((i, fn, params, mstate))
             i = j
-        self._stacked = {}
-        for start, end in self._runs:
-            if end - start > 1:
-                task = self.members[start][0]
-                params = jax.tree.map(
-                    lambda *xs: jnp.stack(xs),
-                    *[self.members[k][1] for k in range(start, end)])
-                mstate = jax.tree.map(
-                    lambda *xs: jnp.stack(xs),
-                    *[self.members[k][2] for k in range(start, end)])
-                self._stacked[start] = (
-                    self._build_stacked_fn(task, mc, end - start),
-                    params, mstate)
 
     @staticmethod
     def _signature(task):
         # type(task) distinguishes task classes with identical configs and
         # loss names (e.g. a future task subclass overriding forward) —
         # only same-class members may share one vmapped forward
-        import dataclasses
-        return (type(task),
-                dataclasses.replace(task.model_config, ct_kernels="off"),
-                task.loss)
+        return (type(task), task.model_config, task.loss)
 
     @property
     def num_subnetworks(self) -> int:
@@ -135,18 +125,10 @@ class Ensemble:
 
         return member_fn
 
-    def _build_member_fn(self, task, mc: int):
-        return jax.jit(self._member_fn_body(task, mc))
-
     def _build_stacked_fn(self, task, mc: int, n_members: int):
         """One program for a run of same-architecture members: vmap the
-        member forward over stacked parameter pytrees.  The Pallas eval
-        fast path is disabled inside the vmap (its kernels assume an
-        unbatched grid); XLA batches the member axis instead."""
-        import dataclasses
-
-        task_off = dataclasses.replace(task, ct_kernels="off")
-        body = self._member_fn_body(task_off, mc)
+        member forward over stacked parameter pytrees."""
+        body = self._member_fn_body(task, mc)
         vm = jax.vmap(body, in_axes=(0, 0, None, 0))
 
         def stacked_fn(params, mstate, image, rng):
@@ -166,33 +148,11 @@ class Ensemble:
         """[B,H,W,C] -> (p1, p2) each [B, S_total*mc, H, W, C_out/2]."""
         if rng is None:
             rng = jax.random.key(0)
-        # member-loop when the CT eval fast path applies (it beats the
-        # vmapped stacked program, whose batched-weight convs XLA lowers
-        # poorly and which cannot use pallas kernels); stacked otherwise
-        from mimo_unet_tpu.models.fast_path import ct_fast_path_supported
-
-        def _ct_ok(task):
-            bsz = image.shape[0]
-            shape = (bsz, task.num_subnetworks) + tuple(image.shape[1:])
-            return ct_fast_path_supported(
-                task.model_config, shape, train=False,
-                mc_dropout=self.monte_carlo_steps > 0)
-
         p1s, p2s = [], []
-        for start, end in self._runs:
-            if start in self._stacked and not _ct_ok(self.members[start][0]):
-                fn, params, mstate = self._stacked[start]
-                p1, p2 = fn(params, mstate, image,
-                            jax.random.fold_in(rng, start))
-                p1s.append(p1)
-                p2s.append(p2)
-                continue
-            for m in range(start, end):
-                task, params, model_state = self.members[m]
-                p1, p2 = self._member_fns[m](
-                    params, model_state, image, jax.random.fold_in(rng, m))
-                p1s.append(p1)
-                p2s.append(p2)
+        for start, fn, params, mstate in self._runs:
+            p1, p2 = fn(params, mstate, image, jax.random.fold_in(rng, start))
+            p1s.append(p1)
+            p2s.append(p2)
         return jnp.concatenate(p1s, axis=1), jnp.concatenate(p2s, axis=1)
 
     def __call__(self, image: jax.Array, rng: Optional[jax.Array] = None):

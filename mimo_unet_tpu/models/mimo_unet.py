@@ -1,6 +1,6 @@
 """MIMO U-Net: per-subnetwork encoders/decoders around a shared core.
 
-Functional, TPU-first rebuild of the reference architecture (reference:
+Functional rebuild of the reference architecture (reference:
 mimo/models/mimo_components/model.py:26-297).  Where the reference loops
 Python ``nn.ModuleList``s over the S subnetworks (model.py:167-173,
 :292-295), here the per-subnetwork encoder/decoder parameters are stored
@@ -58,17 +58,13 @@ class MimoUNetConfig:
     decoder_dropout_rate: float = 0.0
     bilinear: bool = True
     use_pooling_indices: bool = False
-    # None -> f32 compute; "bfloat16" -> MXU bf16 with f32 accumulation
-    # (the TPU analog of the reference's "16-mixed" AMP).
+    # None -> f32 compute; "bfloat16" -> bf16 operands with f32
+    # accumulation (the analog of the reference's "16-mixed" AMP).
     compute_dtype: Optional[str] = None
-    # CT Pallas fast path for eval (ops/pallas/ct_conv.py): "auto" enables
-    # it on TPU for eligible shapes, "off" disables, "force" also enables
-    # the interpreter path off-TPU (tests).
-    ct_kernels: str = "auto"
-    # Rematerialization (jax.checkpoint) for the train forward — the HBM
-    # capacity ladder (train/capacity.py): "none" saves every residual;
-    # "enc" recomputes the per-subnetwork encoders in the backward (the
-    # full-res residuals dominate HBM at large batch); "all" additionally
+    # Rematerialization (jax.checkpoint) for the train forward — the
+    # device-memory capacity ladder (train/capacity.py): "none" saves every
+    # residual; "enc" recomputes the per-subnetwork encoders in the backward
+    # (the full-res residuals dominate memory at large batch); "all" additionally
     # recomputes the core and decoders.  Numerics are identical (same ops
     # replayed); cost is the extra forward FLOPs of the wrapped sections.
     remat: str = "none"
@@ -203,42 +199,10 @@ def mimo_unet_apply(
     if rng is None:
         rng = jax.random.key(0)  # unused: every dropout site is a no-op
 
-    from mimo_unet_tpu.models.fast_path import (
-        ct_fast_path_supported, ct_train_path_supported,
-        mimo_unet_apply_ct, mimo_unet_apply_ct_train)
-
-    if ct_fast_path_supported(cfg, x.shape, train=train,
-                              mc_dropout=mc_dropout):
-        return mimo_unet_apply_ct(params, state, x, cfg, rng=rng,
-                                  mc_dropout=mc_dropout)
-    if ct_train_path_supported(cfg, x.shape, train=train,
-                               mc_dropout=mc_dropout):
-        return mimo_unet_apply_ct_train(params, state, x, cfg, rng=rng)
-
     k_enc, k_core, k_dec = jax.random.split(rng, 3)
-    cdt = cfg._compute_dtype
-
-    # ----- encoder: vmap over the subnetwork axis ---------------------------
-    def encoder_one(p, st, xs, k):
-        k1, k2 = jax.random.split(k)
-        x1, st_in = double_conv_apply(
-            p["in_conv"], st["in_conv"], xs, train=train,
-            dropout_rate=cfg.encoder_dropout_rate, dropout_key=k1,
-            mc_dropout=mc_dropout, compute_dtype=cdt,
-        )
-        (x2, ind2), st_d1 = down_apply(
-            p["down1"], st["down1"], x1, train=train,
-            use_pooling_indices=cfg.use_pooling_indices,
-            dropout_rate=cfg.encoder_dropout_rate, dropout_key=k2,
-            mc_dropout=mc_dropout, compute_dtype=cdt,
-        )
-        return (x1, x2, ind2), {"in_conv": st_in, "down1": st_d1}
-
-    if train and cfg.remat in ("enc", "all"):
-        encoder_one = jax.checkpoint(encoder_one)
-    (x1s, x2s, ind2s), enc_state = jax.vmap(
-        encoder_one, in_axes=(0, 0, 1, 0), out_axes=0
-    )(params["encoder"], state["encoder"], x, jax.random.split(k_enc, s))
+    (x1s, x2s, ind2s), enc_state = encoder_apply(
+        params["encoder"], state["encoder"], x, cfg, train=train, rng=k_enc,
+        mc_dropout=mc_dropout)
 
     # concat the S encodings subnetwork-major on channels:
     # [S, B, H/2, W/2, 2F] -> [B, H/2, W/2, S*2F]
@@ -256,7 +220,73 @@ def mimo_unet_apply(
         core_fn = jax.checkpoint(core_fn)
     x_up, core_st = core_fn(params["core"], state["core"], x2_concat, k_core)
 
-    # ----- decoder: vmap over the subnetwork axis ---------------------------
+    logits, dec_state = decoder_apply(
+        params["decoder"], state["decoder"], x_up, x1s, ind2s, cfg,
+        train=train, rng=k_dec, mc_dropout=mc_dropout,
+        dropout_active=dropout_active)
+
+    new_state = {"encoder": enc_state, "core": core_st, "decoder": dec_state}
+    # [S, B, H, W, C_out] -> [B, S, H, W, C_out]; model output is the loss
+    # boundary, so upcast bf16 activations back to f32 here.
+    return jnp.moveaxis(logits, 0, 1).astype(jnp.float32), new_state
+
+
+def encoder_apply(
+    params: dict,
+    state: dict,
+    x: jax.Array,
+    cfg: MimoUNetConfig,
+    *,
+    train: bool,
+    rng: jax.Array,
+    mc_dropout: bool = False,
+):
+    """Per-subnetwork encoders (in_conv, down1), vmapped over S:
+    x [B, S, H, W, C_in] -> ((x1s, x2s, ind2s) each with a leading [S]
+    axis, new encoder state).  ``params``/``state`` are the model's
+    "encoder" subtrees."""
+    cdt = cfg._compute_dtype
+
+    def encoder_one(p, st, xs, k):
+        k1, k2 = jax.random.split(k)
+        x1, st_in = double_conv_apply(
+            p["in_conv"], st["in_conv"], xs, train=train,
+            dropout_rate=cfg.encoder_dropout_rate, dropout_key=k1,
+            mc_dropout=mc_dropout, compute_dtype=cdt,
+        )
+        (x2, ind2), st_d1 = down_apply(
+            p["down1"], st["down1"], x1, train=train,
+            use_pooling_indices=cfg.use_pooling_indices,
+            dropout_rate=cfg.encoder_dropout_rate, dropout_key=k2,
+            mc_dropout=mc_dropout, compute_dtype=cdt,
+        )
+        return (x1, x2, ind2), {"in_conv": st_in, "down1": st_d1}
+
+    if train and cfg.remat in ("enc", "all"):
+        encoder_one = jax.checkpoint(encoder_one)
+    return jax.vmap(encoder_one, in_axes=(0, 0, 1, 0), out_axes=0)(
+        params, state, x, jax.random.split(rng, cfg.num_subnetworks))
+
+
+def decoder_apply(
+    params: dict,
+    state: dict,
+    x_up: jax.Array,
+    x1s: jax.Array,
+    ind2s: Optional[jax.Array],
+    cfg: MimoUNetConfig,
+    *,
+    train: bool,
+    rng: jax.Array,
+    mc_dropout: bool = False,
+    dropout_active: bool = False,
+):
+    """Per-subnetwork decoders (up4, final dropout, outc), vmapped over S:
+    the shared core output ``x_up`` [B, H/2, W/2, ·] plus each
+    subnetwork's full-resolution skip ``x1s`` [S, B, H, W, F] ->
+    (logits [S, B, H, W, C_out], new decoder state)."""
+    cdt = cfg._compute_dtype
+
     def decoder_one(p, st, x1, ind2, k):
         k1, k2 = jax.random.split(k)
         if cfg.use_pooling_indices and ind2 is not None:
@@ -280,14 +310,9 @@ def mimo_unet_apply(
 
     if train and cfg.remat == "all":
         decoder_one = jax.checkpoint(decoder_one)
-    logits, dec_state = jax.vmap(
-        decoder_one, in_axes=(0, 0, 0, 0, 0), out_axes=0
-    )(params["decoder"], state["decoder"], x1s, ind2s, jax.random.split(k_dec, s))
-
-    new_state = {"encoder": enc_state, "core": core_st, "decoder": dec_state}
-    # [S, B, H, W, C_out] -> [B, S, H, W, C_out]; model output is the loss
-    # boundary, so upcast bf16 activations back to f32 here.
-    return jnp.moveaxis(logits, 0, 1).astype(jnp.float32), new_state
+    return jax.vmap(decoder_one, in_axes=(0, 0, 0, 0, 0), out_axes=0)(
+        params, state, x1s, ind2s,
+        jax.random.split(rng, cfg.num_subnetworks))
 
 
 def core_apply(
@@ -300,16 +325,9 @@ def core_apply(
     rng: jax.Array,
     mc_dropout: bool = False,
     dropout_active: bool = False,
-    x2_pooled: Optional[jax.Array] = None,
 ) -> Tuple[jax.Array, dict]:
     """Shared core (down2..up3, reference model.py:178-243): the NHWC
-    section between the per-subnetwork encoder concat and the decoders.
-
-    ``x2_pooled``: down2's pool input already pooled by the caller (the CT
-    train path pools the boundary in the kernels' native layout with the
-    up3 skip cotangent fused — see fast_path._enc_train_local(bpool)); the
-    skip-add fusion then lives upstream and ``x2_concat`` is only up3's
-    skip."""
+    section between the per-subnetwork encoder concat and the decoders."""
     cdt = cfg._compute_dtype
     kc = jax.random.split(rng, 7)
     core_st = {}
@@ -325,16 +343,12 @@ def core_apply(
             return max_pool_2x2_skip(x)
         return x, x
 
-    if x2_pooled is not None:
-        p2, x2_id, d2_prepooled = x2_pooled, x2_concat, True
-    else:
-        p2, x2_id = _pool_skip(x2_concat)
-        d2_prepooled = fuse_skip
+    p2, x2_id = _pool_skip(x2_concat)
     (x3, ind3), core_st["down2"] = down_apply(
         params["down2"], state["down2"], p2, train=train,
         use_pooling_indices=cfg.use_pooling_indices,
         dropout_rate=cfg.core_dropout_rate, dropout_key=kc[0],
-        mc_dropout=mc_dropout, compute_dtype=cdt, pre_pooled=d2_prepooled,
+        mc_dropout=mc_dropout, compute_dtype=cdt, pre_pooled=fuse_skip,
     )
     p3, x3_id = _pool_skip(x3)
     (x4, ind4), core_st["down3"] = down_apply(

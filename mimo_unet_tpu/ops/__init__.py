@@ -1,4 +1,4 @@
-"""TPU-native primitive ops (NHWC layout).
+"""Primitive ops (NHWC layout).
 
 These are the building blocks under ``mimo_unet_tpu.models``: convolutions
 with reflect padding, pooling (with torch-compatible argmax indices for the

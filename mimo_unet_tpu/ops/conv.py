@@ -1,10 +1,10 @@
-"""2D convolutions in NHWC layout for TPU.
+"""2D convolutions in NHWC layout.
 
 The reference U-Net blocks (reference: mimo/models/mimo_components/
 components.py:23-28) use 3x3 convs with reflect padding and 1x1 output
 convs; the non-bilinear ``Up`` variant uses a 2x2 stride-2 transposed conv
 (components.py:96-99).  Here they are expressed as
-``lax.conv_general_dilated`` over NHWC/HWIO, the layouts the TPU MXU wants.
+``lax.conv_general_dilated`` over NHWC/HWIO (cuDNN's preferred layouts).
 
 Weights are stored HWIO: ``[kh, kw, in_channels // groups, out_channels]``.
 Initialization matches ``torch.nn.Conv2d.reset_parameters`` (kaiming-uniform
@@ -38,14 +38,14 @@ def _reflect_pad_matrix(w: int) -> np.ndarray:
 
 
 def reflect_pad1(x: jax.Array) -> jax.Array:
-    """Reflect-pad H and W by 1 (NHWC, any leading dims), TPU-tuned.
+    """Reflect-pad H and W by 1 (NHWC, any leading dims).
 
-    ``jnp.pad(mode="reflect")`` on the width axis is a sublane-misaligned
-    relayout on TPU (~5x the copy cost) and dominated the conv stack at
-    high resolution.  Instead: H is padded with a major-dim concat (copy
-    speed) and W by contracting a [W+2, W] 0/1 selection matrix on the MXU
-    — ~2x faster end-to-end for the small-channel convolutions.  For wide
-    channels (>=128 lanes full) plain jnp.pad is at parity, so it is kept.
+    H is padded with a major-dim concat and, for narrow channel counts
+    (< 128), W by contracting a [W+2, W] 0/1 selection matrix instead of
+    ``jnp.pad(mode="reflect")``; wide channels and W < 2 use plain
+    ``jnp.pad``.  The matmul form answered a relayout cost of the machine
+    this was first tuned on; which form wins on the GPU is still to be
+    measured (ROADMAP Queue 1, reflect padding).
 
     Exact: each output element is 1.0 * x (HIGHEST precision for f32).
     """
@@ -70,9 +70,8 @@ def _conv3x3_reflect_fused(x: jax.Array, w: jax.Array, groups: int) -> jax.Array
     fell outside (valued at their reflect rows/cols: -1 -> 1, H -> H-2)
     are added back as eight tiny convs over 1-wide border slices, padded
     back to full size with zeros (XLA fuses the pads + adds into one
-    epilogue pass).  Saves the two full HBM passes reflect_pad1 spends
-    materializing the padded tensor — the dominant conv glue cost in the
-    train step (profiler trace, docs/PERFORMANCE.md round 3).
+    epilogue pass).  Saves the two full memory passes reflect_pad1 spends
+    materializing the padded tensor.
 
     Exact in f32 up to addition-order rounding; in bf16 the border pixels
     see one extra rounding (corrections are added post-conv).
@@ -112,8 +111,7 @@ def _conv3x3_reflect_customgrad(x, w, groups):
     """_conv3x3_reflect_fused with the CLASSIC backward.
 
     Differentiating the fused forward makes XLA backward through the
-    eight border-correction convs (scatter chains; measured B=64 train
-    161 -> 177 ms/step, docs/PERFORMANCE.md round 3).  The gradient of
+    eight border-correction convs (scatter chains).  The gradient of
     conv(reflect_pad(x), w) doesn't care how the forward was computed, so
     the backward here is written out as the classic ops: dx = full
     correlation with the flipped/swapped kernel + reflect folds (W fold
@@ -198,7 +196,7 @@ def conv2d(
 ) -> jax.Array:
     """NHWC conv. ``padding``: int (zero pad), "SAME", "VALID" or "REFLECT".
 
-    ``skip_bias=True`` omits the bias add (a separate HBM pass): used when
+    ``skip_bias=True`` omits the bias add (a separate memory pass): used when
     a train-mode BatchNorm follows, which cancels the bias analytically —
     the caller folds it into the BN running mean instead
     (ops/norm.py::batch_norm fold_conv_bias).
@@ -209,9 +207,9 @@ def conv2d(
     (e.g. the pad-emitting bilinear upsample) to skip the pad entirely.
 
     ``compute_dtype`` casts inputs and weights (e.g. to bfloat16) and the
-    output *stays* in that dtype — the TPU mixed-precision recipe: bf16
-    activations end-to-end (the MXU accumulates in f32 in hardware), f32
-    master weights, f32 upcast only at normalization/loss boundaries.
+    output *stays* in that dtype — the mixed-precision recipe: bf16
+    activations end-to-end (the conv accumulates in f32), f32 master
+    weights, f32 upcast only at normalization/loss boundaries.
     (``preferred_element_type`` upcasting is avoided: jax 0.9's conv
     transpose rule mismatches dtypes when differentiating through it.)
     """
@@ -227,12 +225,11 @@ def conv2d(
     if padding == "REFLECT":
         if not prepadded:
             ph, pw = (kh - 1) // 2, (kw - 1) // 2
-            # ``fused_reflect`` opts into the pad-free formulation
-            # (measured WIN for the eval forward: 75.1 -> 71.9 ms at
-            # B=128).  Under autodiff it pairs with the classic backward
-            # via _conv3x3_reflect_customgrad — XLA differentiating the
-            # correction convs directly was a measured LOSS (161 -> 177
-            # ms at B=64); groups > 1 falls through to the pad path.
+            # ``fused_reflect`` opts into the pad-free formulation.  Under
+            # autodiff it pairs with the classic backward via
+            # _conv3x3_reflect_customgrad rather than letting XLA
+            # differentiate the correction convs; groups > 1 falls
+            # through to the pad path.
             if (fused_reflect
                     and (ph, pw) == (1, 1) and stride == 1 and x.ndim == 4
                     and x.shape[-3] >= 2 and x.shape[-2] >= 2):

@@ -54,18 +54,19 @@ def batch_norm(
     ``fold_conv_bias``: when the producing conv skipped its bias add
     (train mode only — the bias cancels out of ``x - mean`` analytically),
     pass the bias here so the *running* mean still tracks the biased conv
-    output the eval path will see.  Saves a full elementwise HBM pass per
-    conv (~4.6 ms/step at B=64); the CT kernel path does the same fold
-    (models/fast_path.py::_bn_affine_from_stats).
+    output the eval path will see.  Saves a full elementwise memory pass
+    per conv.
     """
     reduce_axes = tuple(range(x.ndim - 1))
 
     if train:
-        mean = jnp.mean(x, axis=reduce_axes, dtype=jnp.float32)
-        var = (
-            jnp.mean(jnp.square(x.astype(jnp.float32)), axis=reduce_axes)
-            - jnp.square(mean)
-        )
+        # two-pass variance: the one-pass E[x^2] - E[x]^2 cancels
+        # catastrophically in f32 for channels whose mean dwarfs their
+        # spread, which visibly skews train-mode gradients
+        # (tests/test_xla_model.py)
+        xf = x.astype(jnp.float32)
+        mean = jnp.mean(xf, axis=reduce_axes)
+        var = jnp.mean(jnp.square(xf - mean), axis=reduce_axes)
         n = 1
         for a in reduce_axes:
             n *= x.shape[a]

@@ -23,9 +23,9 @@ from jax import lax
 def max_pool_2x2(x: jax.Array) -> jax.Array:
     """NHWC 2x2/stride-2 max pool. Odd trailing row/col is dropped (torch floor).
 
-    Custom VJP: the default ``reduce_window`` gradient lowers to TPU
-    select-and-scatter (slow); the backward here routes the cotangent with
-    one equality mask and a broadcast — pure VPU work.  Under exact ties
+    Custom VJP: instead of the default ``reduce_window`` gradient
+    (select-and-scatter), the backward routes the cotangent with one
+    equality mask and a broadcast — one elementwise fusion.  Under exact ties
     inside a window the gradient goes to every tied element (torch picks
     one); ties are measure-zero for continuous activations.
     """
@@ -34,7 +34,7 @@ def max_pool_2x2(x: jax.Array) -> jax.Array:
 
 def _max_pool_2x2_fwd_value(x: jax.Array) -> jax.Array:
     # reduce_window for the forward: a reshape-based max would split the
-    # sublane (W) dimension — a measurable relayout at 256x256
+    # W dimension
     b, h, w, c = x.shape
     x = x[:, : h - h % 2, : w - w % 2, :]
     init = (
@@ -80,7 +80,7 @@ def max_pool_2x2_skip(x: jax.Array):
     backward: routing the skip consumer through the returned identity lets
     the skip cotangent fold into the pool's equality-mask fusion
     (``mask * g_up + g_skip`` in one XLA pass), so the full-resolution
-    ``add_any`` merge of the two consumers' cotangents — three HBM passes
+    ``add_any`` merge of the two consumers' cotangents — three memory passes
     over the skip tensor — never materializes.  Gradients are exactly the
     unfused pair's (tests/test_ops.py)."""
     return _max_pool_2x2_fwd_value(x), x

@@ -9,9 +9,11 @@ zero-pads to match the skip tensor and concatenates.
 align_corners by up to several 1e-2 — far beyond the 1e-3 parity budget —
 so the align-corners gather/lerp is rolled by hand here.  Sampling grid:
 ``src = dst * (in - 1) / (out - 1)`` per spatial axis.  Because out = 2*in,
-the index/weight tables are static arrays baked into the jitted program;
-the op is two axis-wise gather+lerp passes (VPU-bound, fuses with
-neighbors under XLA).
+the index/weight tables are static arrays baked into the jitted program.
+The model path contracts them as dense interpolation matrices
+(``_upsample_hw_matmul``); the take/lerp form
+(``_resize_axis_align_corners``) is the plain reference it is tested
+against.
 """
 
 from __future__ import annotations
@@ -66,14 +68,13 @@ def _reflect_extend(mat: np.ndarray) -> np.ndarray:
 def _upsample_hw_matmul(
     x: jax.Array, out_h: int, out_w: int, pad_output: bool = False
 ) -> jax.Array:
-    """Bilinear align-corners resize as two MXU matmuls.
+    """Bilinear align-corners resize as two dense matmuls.
 
-    TPU-critical: a take-based gather lowers to scalar dynamic-slices and
-    dominated the whole forward pass (~75% of inference time); even the
-    slice+lerp formulation left XLA materializing every intermediate.
-    Contracting against the (banded, <=2 nonzeros per row) interpolation
-    matrix turns the resize into dense matmuls the MXU eats: ~10x faster
-    than the gather at the U-Net's sizes despite the redundant zeros.
+    Contracts against the (banded, <=2 nonzeros per row) interpolation
+    matrices instead of gathering: the form chosen on the machine this was
+    first tuned on, where gathers ran as scalar dynamic-slices.  Whether
+    it or a slice+lerp wins on the GPU is still to be measured (ROADMAP
+    Queue 1, bilinear upsample).
 
     ``pad_output=True`` additionally emits the result reflect-padded by 1
     on H and W (two extra rows per interpolation matrix) — the consumer's
@@ -102,12 +103,11 @@ def _upsample_hw_matmul(
 def mat_einsum(pattern_f, pattern_b, mat, x, precision=None):
     """einsum against a constant matrix with a layout-preserving VJP.
 
-    XLA's autodiff of ``einsum(pattern_f, mat, x)`` lowers the cotangent
-    contraction with relayout transposes (~10 ms/step of the B=128 train
-    backward across the three core up blocks, round-3 trace).  The
-    transpose of a linear map is the same einsum against the same matrix
-    with the contracted index swapped — ``pattern_b`` states it in the
-    operand's own layout, so the backward lowers exactly like the forward.
+    XLA's autodiff of ``einsum(pattern_f, mat, x)`` can lower the cotangent
+    contraction with relayout transposes.  The transpose of a linear map
+    is the same einsum against the same matrix with the contracted index
+    swapped — ``pattern_b`` states it in the operand's own layout, so the
+    backward lowers exactly like the forward.
     ``mat`` is treated as a constant (interpolation tables): no cotangent.
     """
     @jax.custom_vjp

@@ -1,21 +1,20 @@
-"""Device mesh + sharding layer (data parallelism over ICI).
+"""Device mesh + sharding layer (data parallelism across devices).
 
 The reference is strictly single-device (reference: scripts/train/
 train_nyuv2_depth.py:72-73, ``devices=1``; no process groups anywhere).
-This framework scales the TPU-native way instead: a 1-D ``jax.sharding.Mesh``
-over all local chips with the batch axis sharded and parameters replicated.
+This framework scales with a 1-D ``jax.sharding.Mesh`` over all local
+devices, with the batch axis sharded and parameters replicated.
 The train step stays written as global-batch math — under ``jit`` with these
-shardings XLA partitions the program and inserts the ICI collectives
+shardings XLA partitions the program and inserts the collectives
 (gradient psum, BatchNorm statistics reductions), which exactly reproduces
 the reference's single-device global-batch semantics at any device count.
 
-Multi-host (DCN) scaling hooks in via ``jax.distributed.initialize`` before
+Multi-host scaling hooks in via ``jax.distributed.initialize`` before
 ``make_mesh``; ``jax.devices()`` then spans hosts and nothing else changes.
 """
 
 from __future__ import annotations
 
-import contextlib
 from typing import Dict, Optional
 
 import numpy as np
@@ -24,42 +23,6 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 DATA_AXIS = "data"
 SPATIAL_AXIS = "spatial"
-
-# --------------------------------------------------------------------------
-# Active-mesh context for the CT Pallas fast path.
-#
-# ``pallas_call`` has no GSPMD partitioning rule, so the CT kernels
-# (ops/pallas/ct_conv.py, ct_train.py) must run under ``jax.shard_map``
-# over the data axis when the enclosing step is sharded across >1 device.
-# The model apply is a pure function that cannot see the trainer's mesh, so
-# the trainer (and any other mesh-owning caller) publishes it here for the
-# duration of tracing; models/fast_path.py reads it at trace time and wraps
-# the kernel sections in shard_map with the BatchNorm batch statistics
-# psum'd across the axis (preserving the reference's global-batch BN,
-# SURVEY.md §7 hard-part 2).
-
-_CT_MESH_STACK: list = []
-
-
-@contextlib.contextmanager
-def ct_mesh_scope(mesh: Optional[Mesh]):
-    """Publish ``mesh`` to the CT fast path for computations traced inside.
-
-    jit-compiled functions capture the mesh at trace time, so the scope must
-    enclose the first call of every jitted step (the Trainer wraps its whole
-    fit loop).  ``mesh=None`` or a 1-device mesh leaves the single-device
-    path untouched."""
-    _CT_MESH_STACK.append(mesh)
-    try:
-        yield
-    finally:
-        _CT_MESH_STACK.pop()
-
-
-def current_ct_mesh() -> Optional[Mesh]:
-    """The innermost active ``ct_mesh_scope`` mesh, or None."""
-    return _CT_MESH_STACK[-1] if _CT_MESH_STACK else None
-
 
 def make_mesh(num_devices: Optional[int] = None, devices=None) -> Mesh:
     """1-D data-parallel mesh over the first ``num_devices`` devices."""
@@ -79,7 +42,7 @@ def make_mesh_2d(
     (SURVEY.md §5): the H dimension of every activation is sharded and XLA's
     SPMD partitioner inserts the halo exchanges for the 3x3 convolutions /
     pools automatically (verified identical to the unsharded forward to
-    ~1e-8).  Use when image extents outgrow a single chip's HBM.
+    ~1e-8).  Use when image extents outgrow a single device's memory.
     """
     if devices is None:
         devices = jax.devices()

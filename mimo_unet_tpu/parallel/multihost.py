@@ -1,4 +1,4 @@
-"""Multi-host (DCN) scaling hooks.
+"""Multi-host scaling hooks.
 
 The reference has no distributed execution at all (single GPU,
 scripts/train/train_nyuv2_depth.py:72-73).  This framework's data
@@ -6,11 +6,11 @@ parallelism is mesh-based (parallel/mesh.py); scaling beyond one host is
 jax.distributed + the same mesh over all processes' devices:
 
     from mimo_unet_tpu.parallel.multihost import initialize_multihost
-    initialize_multihost()              # reads cluster env (TPU pods: auto)
-    mesh = make_mesh()                  # now spans all hosts' chips
+    initialize_multihost("host0:1234", num_processes=2, process_id=rank)
+    mesh = make_mesh()                  # now spans all hosts' devices
 
-Under jit with the batch sharded on the mesh, gradient/batch-norm
-reductions ride ICI within a slice and DCN across slices — no further code
+Under jit with the batch sharded on the mesh, XLA inserts the gradient and
+batch-norm reductions across every device of every host — no further code
 changes, because every step function is written as global-batch math.
 
 Per-host input feeding: each process should feed its local shard;
@@ -30,7 +30,7 @@ def initialize_multihost(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> None:
-    """jax.distributed.initialize with pass-through args (auto on TPU pods).
+    """jax.distributed.initialize with pass-through args.
 
     Safe to call when already initialized (no-op) or on a single process
     with no cluster env (returns without initializing).

@@ -41,8 +41,7 @@ class EvidentialUnetTask:
     scheduler_step_size: int = 20
     scheduler_gamma: float = 0.5
     compute_dtype: Optional[str] = None
-    ct_kernels: str = "auto"  # CT Pallas eval fast path (models/fast_path.py)
-    remat: str = "none"  # HBM capacity ladder (train/capacity.py)
+    remat: str = "none"  # memory capacity ladder (train/capacity.py)
 
     @property
     def model_config(self) -> MimoUNetConfig:
@@ -59,7 +58,6 @@ class EvidentialUnetTask:
             bilinear=True,
             use_pooling_indices=False,
             compute_dtype=self.compute_dtype,
-            ct_kernels=self.ct_kernels,
             remat=self.remat,
         )
 

@@ -12,7 +12,7 @@ Rebuilt from reference mimo/models/mimo_unet.py:15-314:
     combined std re-encoded through calculate_dist_param(log=True).
   * configure_optimizers (:185-201): Adam + StepLR(20, 0.5).
 
-TPU-first differences: the whole train step (including the loss-buffer ring
+Differences from the reference: the whole train step (including the loss-buffer ring
 and metric computation) is one jitted program over carried ``TrainState``;
 no host round-trips.  The batch axis may be sharded over a device mesh —
 all math is global-batch, so XLA inserts the collectives (BatchNorm included,
@@ -90,8 +90,7 @@ class MimoUnetTask:
     scheduler_step_size: int = 20
     scheduler_gamma: float = 0.5
     compute_dtype: Optional[str] = None
-    ct_kernels: str = "auto"  # CT Pallas eval fast path (models/fast_path.py)
-    remat: str = "none"  # HBM capacity ladder (train/capacity.py)
+    remat: str = "none"  # memory capacity ladder (train/capacity.py)
 
     # ------------------------------------------------------------------ config
 
@@ -110,7 +109,6 @@ class MimoUnetTask:
             bilinear=True,
             use_pooling_indices=False,
             compute_dtype=self.compute_dtype,
-            ct_kernels=self.ct_kernels,
             remat=self.remat,
         )
 
@@ -174,16 +172,16 @@ class MimoUnetTask:
 
     # ------------------------------------------------------------- train step
 
-    def train_step(
+    def loss_and_grads(
         self,
-        tx: optax.GradientTransformation,
         state: TrainState,
         batch: Dict[str, jax.Array],
         rng: jax.Array,
-        with_outputs: bool = False,
-    ) -> Tuple[TrainState, Dict[str, jax.Array], Optional[Dict[str, jax.Array]]]:
-        """One optimization step.  ``batch``: image/label [B,H,W,C], optional
-        mask [B,H,W,1].  Returns (new_state, logs, outputs-or-None)."""
+    ):
+        """The train step's objective, differentiated: returns (grads,
+        (loss_vec, weights, new_model_state, p1, p2, label_t, mask_t)),
+        with ``loss_vec`` the per-subnetwork losses and ``weights`` their
+        loss-buffer weights."""
         loss_fn = self.loss_fn
         batch = device_normalize(batch)
         k_transform, k_dropout = jax.random.split(jax.random.fold_in(rng, state.step))
@@ -211,9 +209,22 @@ class MimoUnetTask:
             loss_weighted = jnp.mean(loss_vec * weights)
             return loss_weighted, (loss_vec, weights, new_model_state, p1, p2)
 
-        grads, (loss_vec, weights, new_model_state, p1, p2) = jax.grad(
-            objective, has_aux=True
-        )(state.params)
+        grads, aux = jax.grad(objective, has_aux=True)(state.params)
+        return grads, aux + (label_t, mask_t)
+
+    def train_step(
+        self,
+        tx: optax.GradientTransformation,
+        state: TrainState,
+        batch: Dict[str, jax.Array],
+        rng: jax.Array,
+        with_outputs: bool = False,
+    ) -> Tuple[TrainState, Dict[str, jax.Array], Optional[Dict[str, jax.Array]]]:
+        """One optimization step.  ``batch``: image/label [B,H,W,C], optional
+        mask [B,H,W,1].  Returns (new_state, logs, outputs-or-None)."""
+        loss_fn = self.loss_fn
+        grads, (loss_vec, weights, new_model_state, p1, p2, label_t,
+                mask_t) = self.loss_and_grads(state, batch, rng)
 
         updates, new_opt_state = tx.update(grads, state.opt_state, state.params)
         new_params = optax.apply_updates(state.params, updates)

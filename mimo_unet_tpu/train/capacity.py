@@ -1,14 +1,14 @@
-"""HBM capacity ladder: make every batch size compile.
+"""Device-memory capacity ladder: make every batch size compile.
 
-The flagship train step at B=192 needs 15.98 GiB of HBM against the
-v5e's 15.75 (measured round 5) — a capacity failure, not a kernel bug:
-the saved full-res residuals scale linearly with batch.  The reference
-framework never sees this wall because torch releases activations
-eagerly under AMP and OOMs at runtime instead; a jitted TPU program must
-fit at compile time, so the fallback has to be structural.
+At a large enough batch the flagship train step no longer fits device
+memory — a capacity failure, not a kernel bug: the saved full-res
+residuals scale linearly with batch.  The reference framework never sees
+this wall at compile time because torch releases activations eagerly
+under AMP and OOMs at runtime instead; a jitted program is sized when it
+compiles, so the fallback has to be structural.
 
-`make_train_step` AOT-compiles the jitted train step and, on an
-HBM-capacity rejection, retries with progressively more
+`make_train_step` AOT-compiles the jitted train step and, on a
+memory-capacity rejection, retries with progressively more
 rematerialization (``MimoUNetConfig.remat``: "none" -> "enc" -> "all" —
 jax.checkpoint over the encoder, then also core+decoder).  Remat replays
 the same ops in the backward, so numerics are unchanged; the cost is the
@@ -34,7 +34,7 @@ RUNGS = ("none", "enc", "all")
 
 
 def is_hbm_oom(err: BaseException) -> bool:
-    """True when a compile failure is an HBM capacity rejection (the only
+    """True when a compile failure is a memory capacity rejection (the only
     failure class the remat ladder can fix)."""
     msg = str(err).lower()
     return any(m in msg for m in _HBM_OOM_MARKERS)
@@ -51,7 +51,7 @@ def make_train_step(
     rungs: Tuple[str, ...] = RUNGS,
     verbose: bool = True,
 ):
-    """Compile a train step that fits HBM, laddering ``task.remat``.
+    """Compile a train step that fits device memory, laddering ``task.remat``.
 
     Returns ``(jitted_step, task_used)``; ``jitted_step(state, batch,
     rng)`` has the usual (new_state, logs, outputs) signature.  The AOT
@@ -71,7 +71,7 @@ def make_train_step(
             step.lower(state, batch, rng).compile()
             if verbose and rung != task.remat:
                 print(f"[capacity] train step needs remat={rung!r} "
-                      f"to fit HBM at this batch size")
+                      f"to fit device memory at this batch size")
             return step, t
         except Exception as e:  # noqa: BLE001 — classify, then re-raise
             if not is_hbm_oom(e):

@@ -3,10 +3,11 @@
 The reference relies on Lightning's ``save_hyperparameters`` so that
 ``load_from_checkpoint(path)`` rebuilds the model with zero config
 (reference: mimo/models/mimo_unet.py:83-87, ensemble.py:42).  Here a
-checkpoint directory holds an Orbax pytree (params, model_state, opt_state,
-loss buffer, step) plus ``hparams.json``, and ``load_checkpoint`` /
-``rebuild_task`` restore both the state and the task object — the same
-zero-config contract, which the ensemble/eval tooling depends on.
+checkpoint directory holds ``state/arrays.npz`` (params, model_state,
+opt_state, loss buffer, step — one array per pytree leaf, keyed by its
+tree path) plus ``hparams.json``, and ``load_checkpoint`` restores both
+the state and the task object — the same zero-config contract, which the
+ensemble/eval tooling depends on.  The writer needs numpy only.
 
 Also supported: loading PyTorch reference ``.ckpt`` files directly via
 ``mimo_unet_tpu.interop`` (so users can migrate trained models).
@@ -17,31 +18,41 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any, Dict, Optional, Tuple
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Any, Dict, List, Optional
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 
 HPARAMS_FILE = "hparams.json"
 STATE_DIR = "state"
-
-# One AsyncCheckpointer per process: orbax's async signaling layer keys
-# barriers by a global operation counter, and two live AsyncCheckpointer
-# instances in one process race those keys (observed: TimeoutError
-# 'awaitable_signals_contract_N/step_directory_creation' when a second
-# manager saved while the first instance was still alive).  All
-# CheckpointManagers share this singleton; it serializes overlapping
-# saves internally.
-_ASYNC_CKPTR = None
+STATE_FILE = "arrays.npz"
 
 
-def _shared_async_checkpointer():
-    global _ASYNC_CKPTR
-    if _ASYNC_CKPTR is None:
-        import orbax.checkpoint as ocp
+def _state_file(path: str) -> str:
+    return os.path.join(path, STATE_DIR, STATE_FILE)
 
-        _ASYNC_CKPTR = ocp.AsyncCheckpointer(ocp.StandardCheckpointHandler())
-    return _ASYNC_CKPTR
+
+def _replace_atomically(final: str, write) -> None:
+    """Write a side file through ``write(file)``, flush it to disk, then
+    rename it into place: a reader sees the previous complete file or the
+    new one, never a torn one."""
+    os.makedirs(os.path.dirname(final), exist_ok=True)
+    partial = final + ".partial"
+    with open(partial, "wb") as f:
+        write(f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(partial, final)
+
+
+def _host_leaves(state) -> Dict[str, np.ndarray]:
+    """Copy every leaf to host memory, keyed by its tree path."""
+    leaves = jax.tree_util.tree_leaves_with_path(state)
+    host = jax.device_get([leaf for _, leaf in leaves])
+    return {jax.tree_util.keystr(p): np.asarray(v)
+            for (p, _), v in zip(leaves, host)}
 
 
 def _task_from_hparams(hparams: Dict[str, Any]):
@@ -55,66 +66,41 @@ def _task_from_hparams(hparams: Dict[str, Any]):
 
 
 def save_checkpoint(path: str, state, hparams: Dict[str, Any],
-                    checkpointer=None) -> Optional[str]:
-    """Write an Orbax checkpoint + hparams.json under ``path``.
+                    writer: Optional[ThreadPoolExecutor] = None
+                    ) -> Optional[Future]:
+    """Write ``state/arrays.npz`` + ``hparams.json`` under ``path``.
 
-    With ``checkpointer`` (an ``ocp.AsyncCheckpointer``), the save is
-    dispatched asynchronously: device buffers are copied to host before
-    this returns (so training may donate/overwrite the state), and the
-    file write overlaps subsequent train steps — the TPU-native
-    equivalent of the reference's non-blocking ModelCheckpoint callback
-    (train_nyuv2_depth.py:22-36).  The caller owns
-    ``checkpointer.wait_until_finished()``.
+    The state is always copied to host before this returns, so training
+    may donate or overwrite it.  With ``writer`` (a one-thread executor),
+    the file write runs there and overlaps the following train steps —
+    the equivalent of the reference's non-blocking ModelCheckpoint
+    callback (train_nyuv2_depth.py:22-36); the returned future completes
+    once both files are in place.
 
     hparams.json commits AFTER the state does, never before: a crash
-    mid-async-write must not leave fresh hparams (with e.g. new "best"
-    metadata) next to a stale state dir that a later resume would read as
-    consistent.  Sync saves simply write it after the blocking state
-    write; async saves stage ``hparams.json.pending`` and return its path
-    — the caller promotes it once ``wait_until_finished`` confirms the
-    state commit (CheckpointManager does this).  Returns None for sync
-    saves."""
-    import orbax.checkpoint as ocp
-
+    mid-write must not leave fresh hparams (with e.g. new "best"
+    metadata) next to a stale state file that a later resume would read
+    as consistent."""
     path = os.path.abspath(path)
-    os.makedirs(path, exist_ok=True)
-    state_path = os.path.join(path, STATE_DIR)
-    hp_final = os.path.join(path, HPARAMS_FILE)
-    if checkpointer is None:
-        ckptr = ocp.StandardCheckpointer()
-        ckptr.save(state_path, state, force=True)
-        ckptr.wait_until_finished()
-        with open(hp_final, "w") as f:
-            json.dump(hparams, f, indent=2, default=str)
+    host = _host_leaves(state)
+
+    hp_bytes = json.dumps(hparams, indent=2, default=str).encode()
+
+    def write():
+        _replace_atomically(_state_file(path),
+                            lambda f: np.savez(f, **host))
+        _replace_atomically(os.path.join(path, HPARAMS_FILE),
+                            lambda f: f.write(hp_bytes))
+
+    if writer is None:
+        write()
         return None
-    pending = hp_final + ".pending"
-    with open(pending, "w") as f:
-        json.dump(hparams, f, indent=2, default=str)
-    checkpointer.save(state_path, args=ocp.args.StandardSave(state),
-                      force=True)
-    return pending
-
-
-def _promote_pending_hparams(pending: str) -> None:
-    """Atomically publish a staged hparams file (state commit confirmed)."""
-    if os.path.exists(pending):
-        os.replace(pending, pending[: -len(".pending")])
-
-
-def _read_hparams_file(path: str) -> Dict[str, Any]:
-    """Read hparams.json, falling back to a staged .pending file when the
-    final one is absent (a crash after the state committed but before the
-    pending promote — the state is durable, so the pending hparams
-    describe it)."""
-    final = os.path.join(path, HPARAMS_FILE)
-    if not os.path.exists(final) and os.path.exists(final + ".pending"):
-        final = final + ".pending"
-    with open(final) as f:
-        return json.load(f)
+    return writer.submit(write)
 
 
 def load_hparams(path: str) -> Dict[str, Any]:
-    return _read_hparams_file(os.path.abspath(path))
+    with open(os.path.join(os.path.abspath(path), HPARAMS_FILE)) as f:
+        return json.load(f)
 
 
 def load_checkpoint(path: str, steps_per_epoch: int = 1):
@@ -130,24 +116,27 @@ def load_checkpoint(path: str, steps_per_epoch: int = 1):
     if path.endswith(".ckpt") and os.path.isfile(path):
         return _load_reference_ckpt(path, steps_per_epoch)
 
-    import orbax.checkpoint as ocp
-
     path = os.path.abspath(path)
-    hparams = load_hparams(path)
-    task = _task_from_hparams(hparams)
-    abstract = task.init_state(steps_per_epoch)
-    ckptr = ocp.StandardCheckpointer()
-    state = ckptr.restore(
-        os.path.join(path, STATE_DIR),
-        jax.tree.map(ocp.utils.to_shape_dtype_struct, abstract),
-    )
-    return task, state
+    task = _task_from_hparams(load_hparams(path))
+    abstract = jax.eval_shape(lambda: task.init_state(steps_per_epoch))
+    leaves, treedef = jax.tree_util.tree_flatten_with_path(abstract)
+    values = []
+    with np.load(_state_file(path)) as arrays:
+        for p, want in leaves:
+            v = arrays[jax.tree_util.keystr(p)]
+            if v.dtype != want.dtype:
+                # np.savez stores extension dtypes (bfloat16) as raw bytes
+                v = v.view(want.dtype)
+            if v.shape != want.shape:
+                raise ValueError(
+                    f"{path}: leaf {jax.tree_util.keystr(p)} has shape "
+                    f"{v.shape}, the task expects {want.shape}")
+            values.append(jnp.asarray(v))
+    return task, jax.tree_util.tree_unflatten(treedef, values)
 
 
 def _load_reference_ckpt(path: str, steps_per_epoch: int):
     """Convert a reference Lightning checkpoint into (task, TrainState)."""
-    import jax.numpy as jnp
-
     from mimo_unet_tpu.interop import load_reference_checkpoint
     from mimo_unet_tpu.tasks.mimo import TrainState
 
@@ -174,32 +163,19 @@ class CheckpointManager:
         self.root = os.path.abspath(root)
         self.hparams = hparams
         self.best_val_loss = float("inf")
-        self._async = async_save
-        self._ckptr = None
-        self._pending_hparams: list = []
+        # one writer thread: saves run in submission order, so a later
+        # save of the same directory never lands under an earlier one
+        self._writer = ThreadPoolExecutor(max_workers=1) if async_save else None
+        self._pending: List[Future] = []
         os.makedirs(self.root, exist_ok=True)
 
-    def _checkpointer(self):
-        """The process-shared AsyncCheckpointer: save() copies device
-        buffers to host synchronously (no device_put from a background
-        thread — see data/core.py prefetch note) and overlaps the file
-        write with the next epoch's train steps."""
-        if not self._async:
-            return None
-        if self._ckptr is None:
-            self._ckptr = _shared_async_checkpointer()
-        return self._ckptr
-
     def wait_until_finished(self) -> None:
-        """Block until every dispatched async save is durably committed
-        (call before reading a just-written checkpoint or exiting), then
-        publish the staged hparams files (state-commit-first ordering —
-        see save_checkpoint)."""
-        if self._ckptr is not None:
-            self._ckptr.wait_until_finished()
-        for pending in self._pending_hparams:
-            _promote_pending_hparams(pending)
-        self._pending_hparams = []
+        """Block until every dispatched save is on disk (call before
+        reading a just-written checkpoint or exiting); re-raises a failed
+        write."""
+        pending, self._pending = self._pending, []
+        for fut in pending:
+            fut.result()
 
     @property
     def last_path(self) -> str:
@@ -210,10 +186,9 @@ class CheckpointManager:
         return os.path.join(self.root, "best")
 
     def _save(self, path: str, state, hparams) -> None:
-        pending = save_checkpoint(path, state, hparams,
-                                  checkpointer=self._checkpointer())
-        if pending is not None:
-            self._pending_hparams.append(pending)
+        fut = save_checkpoint(path, state, hparams, writer=self._writer)
+        if fut is not None:
+            self._pending.append(fut)
 
     def save_last(self, state) -> None:
         self._save(self.last_path, state, self.hparams)
@@ -232,9 +207,9 @@ class CheckpointManager:
         maybe_save_best) so resumed runs never regress best/.  Called by the
         trainer on resume only — a fresh fit into a reused directory starts
         tracking from scratch, like a new Lightning ModelCheckpoint."""
-        if os.path.isdir(os.path.join(self.best_path, STATE_DIR)):
+        if os.path.exists(_state_file(self.best_path)):
             try:
-                best = _read_hparams_file(self.best_path).get("best", {})
+                best = load_hparams(self.best_path).get("best", {})
             except FileNotFoundError:
                 best = {}
             if "val_loss" in best:
@@ -242,4 +217,4 @@ class CheckpointManager:
         return self.best_val_loss
 
     def has_last(self) -> bool:
-        return os.path.isdir(os.path.join(self.last_path, STATE_DIR))
+        return os.path.exists(_state_file(self.last_path))

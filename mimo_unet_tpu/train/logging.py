@@ -153,7 +153,7 @@ def make_logger(root: str, project: Optional[str] = None, use_wandb: bool = Fals
     loggers = [TSVLogger(root)]
     if use_wandb:
         try:
-            loggers.append(WandbLogger(project or "mimo-tpu", config, root))
+            loggers.append(WandbLogger(project or "mimo-unet", config, root))
         except Exception as e:  # wandb missing or offline
             print(f"[logging] wandb unavailable ({e}); falling back to TSV only")
     if use_tensorboard:

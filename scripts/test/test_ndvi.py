@@ -1,4 +1,4 @@
-"""Evaluate a MIMO U-Net ensemble on SEN12TP NDVI (TPU).
+"""Evaluate a MIMO U-Net ensemble on SEN12TP NDVI.
 
 Mirrors reference scripts/test/test_ndvi.py:131-224: raw SEN12TP dataset
 with VV/VH inputs -> NDVI target, patch/stride windowing and the clipping
@@ -16,6 +16,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".."))
 
+from mimo_unet_tpu.utils import enable_compile_cache
 from mimo_unet_tpu.data.sen12tp import (
     Patchsize,
     Sen12tpDataset,
@@ -32,6 +33,7 @@ from mimo_unet_tpu.models.ensemble import Ensemble
 
 
 def main(args):
+    enable_compile_cache()
     result_dir = Path(args.result_dir)
     result_dir.mkdir(parents=True, exist_ok=False)
 
@@ -84,7 +86,8 @@ if __name__ == "__main__":
     parser.add_argument("--result_dir", type=str, required=True)
     parser.add_argument("--dataset_dir", type=str, required=True)
     parser.add_argument("--monte_carlo_steps", type=int, default=0)
-    parser.add_argument("--device", type=str, default="tpu")  # compat, unused
+    # accepted for reference-CLI compatibility; JAX picks the device
+    parser.add_argument("--device", type=str, default=None)
     parser.add_argument("--processes", type=int, default=2)  # compat, unused
     parser.add_argument("--batch_size", type=int, default=5)
     parser.add_argument("--patch_size", type=int, default=256)

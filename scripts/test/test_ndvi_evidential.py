@@ -1,4 +1,4 @@
-"""Evaluate an evidential U-Net on SEN12TP NDVI (TPU).
+"""Evaluate an evidential U-Net on SEN12TP NDVI.
 
 Mirrors reference scripts/test/test_ndvi_evidential.py:150-209: single
 checkpoint, NIG uncertainties, SEN12TP patch windowing, calibration on a
@@ -14,6 +14,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".."))
 
+from mimo_unet_tpu.utils import enable_compile_cache
 from mimo_unet_tpu.data.sen12tp import (
     Patchsize,
     Sen12tpDataset,
@@ -30,6 +31,7 @@ from mimo_unet_tpu.train.checkpoint import load_checkpoint
 
 
 def main(args):
+    enable_compile_cache()
     result_dir = Path(args.result_dir)
     result_dir.mkdir(parents=True, exist_ok=False)
 
@@ -74,7 +76,8 @@ if __name__ == "__main__":
     parser.add_argument("--model_checkpoint_path", type=str, required=True)
     parser.add_argument("--result_dir", type=str, required=True)
     parser.add_argument("--dataset_dir", type=str, required=True)
-    parser.add_argument("--device", type=str, default="tpu")  # compat, unused
+    # accepted for reference-CLI compatibility; JAX picks the device
+    parser.add_argument("--device", type=str, default=None)
     parser.add_argument("--processes", type=int, default=2)  # compat, unused
     parser.add_argument("--batch_size", type=int, default=5)
     parser.add_argument("--patch_size", type=int, default=256)

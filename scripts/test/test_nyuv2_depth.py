@@ -1,4 +1,4 @@
-"""Evaluate a MIMO U-Net ensemble on NYUv2 depth with FGSM sweeps (TPU).
+"""Evaluate a MIMO U-Net ensemble on NYUv2 depth with FGSM sweeps.
 
 Mirrors the reference eval CLI and artifact set (reference scripts/test/
 test_nyuv2_depth.py:173-259; artifacts documented in its Readme.md:85-94):
@@ -18,6 +18,7 @@ from pathlib import Path
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".."))
 
+from mimo_unet_tpu.utils import enable_compile_cache
 from mimo_unet_tpu.data.nyuv2 import load_nyuv2_depth
 from mimo_unet_tpu.eval.artifacts import make_predictions, write_artifacts
 from mimo_unet_tpu.models.ensemble import Ensemble
@@ -26,6 +27,7 @@ NOISE_LEVELS = [0.00, 0.02, 0.04]
 
 
 def main(args):
+    enable_compile_cache()
     result_dir = Path(args.result_dir)
     result_dir.mkdir(parents=True, exist_ok=False)
 
@@ -65,7 +67,8 @@ if __name__ == "__main__":
     parser.add_argument("--dataset_dir", type=str, required=True)
     parser.add_argument("--monte_carlo_steps", type=int, default=0)
     parser.add_argument("--batch_size", type=int, default=5)
-    parser.add_argument("--device", type=str, default="tpu")  # compat, unused
+    # accepted for reference-CLI compatibility; JAX picks the device
+    parser.add_argument("--device", type=str, default=None)
     parser.add_argument("--processes", type=int, default=None)  # compat, unused
     parser.add_argument(
         "--extra_dataset", nargs="*", default=None, metavar="NAME=PATH",

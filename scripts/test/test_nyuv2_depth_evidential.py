@@ -1,4 +1,4 @@
-"""Evaluate an evidential U-Net on NYUv2 depth with FGSM sweeps (TPU).
+"""Evaluate an evidential U-Net on NYUv2 depth with FGSM sweeps.
 
 Mirrors reference scripts/test/test_nyuv2_depth_evidential.py:150-230:
 single checkpoint, closed-form NIG aleatoric/epistemic uncertainties, same
@@ -12,6 +12,7 @@ from pathlib import Path
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".."))
 
+from mimo_unet_tpu.utils import enable_compile_cache
 from mimo_unet_tpu.data.nyuv2 import load_nyuv2_depth
 from mimo_unet_tpu.eval.artifacts import make_predictions_evidential, write_artifacts
 from mimo_unet_tpu.train.checkpoint import load_checkpoint
@@ -20,6 +21,7 @@ NOISE_LEVELS = [0.00, 0.02, 0.04]
 
 
 def main(args):
+    enable_compile_cache()
     result_dir = Path(args.result_dir)
     result_dir.mkdir(parents=True, exist_ok=False)
 
@@ -44,6 +46,7 @@ if __name__ == "__main__":
     parser.add_argument("--result_dir", type=str, required=True)
     parser.add_argument("--dataset_dir", type=str, required=True)
     parser.add_argument("--batch_size", type=int, default=5)
-    parser.add_argument("--device", type=str, default="tpu")  # compat, unused
+    # accepted for reference-CLI compatibility; JAX picks the device
+    parser.add_argument("--device", type=str, default=None)
     parser.add_argument("--processes", type=int, default=None)  # compat, unused
     main(parser.parse_args())

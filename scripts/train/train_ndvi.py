@@ -1,4 +1,4 @@
-"""Train MIMO U-Net on SEN12TP (e.g. VV/VH -> NDVI) on TPU.
+"""Train MIMO U-Net on SEN12TP (e.g. VV/VH -> NDVI).
 
 Mirrors the reference CLI (reference scripts/train/train_ndvi.py:86-118;
 usage in its Readme.md:33-56), e.g.:
@@ -15,6 +15,7 @@ from argparse import ArgumentParser
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".."))
 
+from mimo_unet_tpu.utils import enable_compile_cache
 from mimo_unet_tpu.cli import (
     add_mimo_model_args,
     add_trainer_args,
@@ -25,6 +26,7 @@ from mimo_unet_tpu.data.sen12tp import add_datamodule_args, get_datamodule
 
 
 def main(args):
+    enable_compile_cache()
     dm = get_datamodule(args)
     task = build_mimo_task(
         args,

@@ -1,4 +1,4 @@
-"""Train the evidential (NIG) U-Net on SEN12TP (TPU).
+"""Train the evidential (NIG) U-Net on SEN12TP.
 
 Mirrors reference scripts/train/train_ndvi_evidential.py (evidential model,
 SEN12TP datamodule; out_channels = 4 * num_targets).
@@ -10,6 +10,7 @@ from argparse import ArgumentParser
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".."))
 
+from mimo_unet_tpu.utils import enable_compile_cache
 from mimo_unet_tpu.cli import (
     add_evidential_model_args,
     add_trainer_args,
@@ -20,6 +21,7 @@ from mimo_unet_tpu.data.sen12tp import add_datamodule_args, get_datamodule
 
 
 def main(args):
+    enable_compile_cache()
     dm = get_datamodule(args)
     task = build_evidential_task(
         args,

@@ -1,4 +1,4 @@
-"""Train MIMO U-Net on NYUv2 depth (TPU).
+"""Train MIMO U-Net on NYUv2 depth.
 
 Mirrors the reference CLI (reference scripts/train/train_nyuv2_depth.py:
 88-123; usage documented in its Readme.md:61-79), e.g.:
@@ -15,6 +15,7 @@ from argparse import ArgumentParser
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".."))
 
+from mimo_unet_tpu.utils import enable_compile_cache
 from mimo_unet_tpu.cli import (
     add_mimo_model_args,
     add_trainer_args,
@@ -25,6 +26,7 @@ from mimo_unet_tpu.data.nyuv2 import NYUv2DepthDataModule
 
 
 def main(args):
+    enable_compile_cache()
     dm = NYUv2DepthDataModule.from_args(args)
     task = build_mimo_task(args, in_channels=3, out_channels=args.num_loss_function_params)
     run_training(args, task, dm, monitor_mode="depth")

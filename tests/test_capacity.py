@@ -1,8 +1,8 @@
-"""HBM capacity ladder (train/capacity.py) + remat numerics.
+"""Device-memory capacity ladder (train/capacity.py) + remat numerics.
 
-The B=192 flagship train step OOMs HBM (15.98 vs 15.75 GiB, round 5);
-the ladder retries the compile with jax.checkpoint rematerialization.
-Remat must be a pure memory/compute trade: identical gradients.
+A train step too large for device memory fails its compile; the ladder
+retries the compile with jax.checkpoint rematerialization.  Remat must be
+a pure memory/compute trade: identical gradients.
 """
 
 import dataclasses
@@ -64,39 +64,19 @@ class TestRematNumerics:
             np.testing.assert_allclose(a, b, rtol=1e-4,
                                        atol=1e-5 * scale)
 
-    @pytest.mark.parametrize("remat", ["enc", "all"])
-    def test_grads_match_ct_train_path(self, remat):
-        """Same invariant through the CT-kernel train path (interpret
-        mode; jax.checkpoint over the custom-VJP Pallas sections)."""
-        from mimo_unet_tpu.models.fast_path import ct_train_path_supported
-
-        base = tiny_task(compute_dtype="bfloat16", ct_kernels="force",
-                         filter_base_count=6).model_config
-        assert ct_train_path_supported(base, (2, 2, 16, 256, 3),
-                                       train=True, mc_dropout=False)
-        l0, g0 = _model_grads(base, b=2, h=16, w=256)
-        l1, g1 = _model_grads(dataclasses.replace(base, remat=remat),
-                              b=2, h=16, w=256)
-        np.testing.assert_allclose(float(l0), float(l1), rtol=1e-5)
-        for a, b in zip(jax.tree.leaves(g0), jax.tree.leaves(g1)):
-            a, b = np.asarray(a), np.asarray(b)
-            scale = max(np.abs(a).max(), 1e-8)
-            np.testing.assert_allclose(a, b, rtol=5e-3,
-                                       atol=1e-3 * scale)
-
 
 class TestLadder:
     def test_oom_classifier(self):
         assert capacity.is_hbm_oom(RuntimeError(
             "INTERNAL: ... Ran out of memory in memory space hbm. "
-            "Used 15.98G of 15.75G hbm."))
+            "Used 17.00G of 16.00G hbm."))
         assert capacity.is_hbm_oom(RuntimeError(
             "RESOURCE_EXHAUSTED: allocation failure"))
         assert not capacity.is_hbm_oom(RuntimeError(
-            "Mosaic failed to compile: unsupported rotate"))
+            "INVALID_ARGUMENT: unsupported convolution layout"))
 
     def test_ladder_falls_back_on_hbm_oom(self, monkeypatch):
-        """Force the B=192 failure mode: rung 'none' OOMs at compile,
+        """Force the capacity failure mode: rung 'none' OOMs at compile,
         the ladder must return a working remat='enc' step — no
         try/except dropping the batch size."""
         task = tiny_task()
@@ -123,7 +103,7 @@ class TestLadder:
                             def compile(self_inner):
                                 raise RuntimeError(
                                     "Ran out of memory in memory space "
-                                    "hbm. Used 15.98G of 15.75G hbm.")
+                                    "hbm. Used 17.00G of 16.00G hbm.")
                         return Boom()
                     return lowered
 
@@ -148,11 +128,11 @@ class TestLadder:
         def fake_jit(fn, **kw):
             class Wrapper:
                 def lower(self, *a, **k):
-                    raise RuntimeError("Mosaic failed: bad kernel")
+                    raise RuntimeError("INVALID_ARGUMENT: bad kernel")
 
             return Wrapper()
 
         monkeypatch.setattr(capacity.jax, "jit", fake_jit)
-        with pytest.raises(RuntimeError, match="Mosaic"):
+        with pytest.raises(RuntimeError, match="bad kernel"):
             capacity.make_train_step(task, tx, state, _batch(),
                                      jax.random.key(1), verbose=False)

@@ -111,6 +111,32 @@ class TestCore:
             np.testing.assert_array_equal(a, b)
 
 
+class TestDeviceCacheBudget:
+    class _Dev:
+        def __init__(self, platform, stats):
+            self.platform, self.device_kind, self._stats = platform, "x", stats
+
+        def memory_stats(self):
+            return self._stats
+
+    @pytest.mark.parametrize("platform,stats,want", [
+        ("cpu", None, None),  # no limit on the host: no gate
+        ("gpu", {"bytes_limit": 1000, "bytes_in_use": 200}, 480),
+        ("gpu", None, RuntimeError),  # an accelerator without stats
+    ])
+    def test_budget_from_memory_stats(self, monkeypatch, platform, stats,
+                                      want):
+        from mimo_unet_tpu.data import core
+
+        monkeypatch.setattr(core.jax, "local_devices",
+                            lambda: [self._Dev(platform, stats)])
+        if want is RuntimeError:
+            with pytest.raises(RuntimeError, match="no memory limit"):
+                core.device_cache_budget_bytes()
+        else:
+            assert core.device_cache_budget_bytes() == want
+
+
 class TestNYUv2:
     def test_load_semantics(self, tmp_path):
         path = make_nyuv2_h5(str(tmp_path), n=10, h=16, w=16)

@@ -66,6 +66,32 @@ class TestEnsemble:
         assert p1.shape == (2, 4, 32, 32, 1)
         assert p2.shape == (2, 4, 32, 32, 1)
 
+    @pytest.mark.parametrize("mc", [0, 2])
+    def test_stacked_members_match_member_runs(self, trained_ckpts, mc):
+        """Same-architecture members run as one vmapped program over
+        stacked parameters; each member's slice of the output equals that
+        member run alone (members x MC passes, member-major)."""
+        ens = Ensemble(trained_ckpts[1:] * 2, monte_carlo_steps=mc,
+                       return_raw_predictions=True)
+        assert len(ens._runs) == 1
+        x = jax.random.uniform(jax.random.key(3), (2, 32, 32, 3))
+        p1, p2 = ens(x, rng=jax.random.key(0))
+        width = 2 * max(1, mc)
+        assert p1.shape == (2, 2 * width, 32, 32, 1)
+        if mc == 0:  # deterministic: both members give the lone one's output
+            s1, s2 = Ensemble(trained_ckpts[1:],
+                              return_raw_predictions=True)(x)
+            for half in (slice(0, width), slice(width, 2 * width)):
+                np.testing.assert_allclose(np.asarray(p1[:, half]),
+                                           np.asarray(s1), rtol=1e-5,
+                                           atol=1e-6)
+                np.testing.assert_allclose(np.asarray(p2[:, half]),
+                                           np.asarray(s2), rtol=1e-5,
+                                           atol=1e-6)
+        else:  # MC: each member draws its own dropout masks
+            assert not np.allclose(np.asarray(p1[:, :width]),
+                                   np.asarray(p1[:, width:]))
+
     def test_uncertainty_mode(self, trained_ckpts):
         ens = Ensemble(trained_ckpts[:1])
         x = jnp.ones((2, 32, 32, 3))
@@ -138,43 +164,25 @@ class TestFGSM:
         assert not np.allclose(np.asarray(x_clean), np.asarray(x_adv))
         assert float(x_adv.min()) >= 0 and float(x_adv.max()) <= 1
 
-    def test_fgsm_grad_skips_ct_kernels(self):
-        """Differentiating through an eval forward must work even when the
-        CT fast path is active: the eval kernels carry no JVP rule, so the
-        gradient traces the XLA path under ``ct_disabled`` (eval/fgsm.py)
-        while the prediction stays on the CT kernels.  ``force`` runs the
-        CT kernels in interpret mode on CPU — without the gate this trace
-        dies in pallas_call's missing JVP rule."""
-        from mimo_unet_tpu.models.fast_path import ct_disabled
-        from mimo_unet_tpu.tasks import MimoUnetTask
-        from mimo_unet_tpu.transforms import repeat_subnetworks
+    def test_fgsm_through_stacked_ensemble(self, trained_ckpts):
+        """Differentiating through eval: two copies of one checkpoint run
+        as one stacked (vmapped) program, and their ensemble NLL is the
+        single member's, so the attack and the predictions must equal the
+        single-member ones."""
+        from mimo_unet_tpu.eval.fgsm import make_fgsm_fn
 
-        task = MimoUnetTask(
-            in_channels=3, out_channels=2, num_subnetworks=2,
-            filter_base_count=4, loss="laplace_nll", seed=0,
-            compute_dtype="bfloat16", ct_kernels="force")
-        state = task.init_state(steps_per_epoch=1)
-        img = jax.random.uniform(jax.random.key(1), (2, 16, 128, 3))
-
-        @jax.jit
-        def attack_and_predict(image):
-            def nll(im):
-                x = repeat_subnetworks(im, 2)
-                (p1, _), _ = task.forward(
-                    state.params, state.model_state, x, train=False)
-                return jnp.mean(jnp.square(p1.astype(jnp.float32)))
-
-            with ct_disabled():
-                g = jax.grad(nll)(image)
-            adv = jnp.clip(image + 0.05 * jnp.sign(g), 0.0, 1.0)
-            x = repeat_subnetworks(adv, 2)
-            (p1, _), _ = task.forward(
-                state.params, state.model_state, x, train=False)
-            return adv, p1
-
-        adv, p1 = attack_and_predict(img)
-        assert bool(jnp.all(jnp.isfinite(p1.astype(jnp.float32))))
-        assert not np.allclose(np.asarray(adv), np.asarray(img))
+        image = jax.random.uniform(jax.random.key(1), (2, 32, 32, 3))
+        label = jax.random.uniform(jax.random.key(2), (2, 32, 32, 1))
+        rng = jax.random.key(0)
+        one = Ensemble(trained_ckpts[:1], return_raw_predictions=True)
+        two = Ensemble([trained_ckpts[0]] * 2, return_raw_predictions=True)
+        x1, p1, _ = make_fgsm_fn(one, 0.02)(image, label, rng)
+        x2, p2, _ = make_fgsm_fn(two, 0.02)(image, label, rng)
+        np.testing.assert_array_equal(np.asarray(x1), np.asarray(x2))
+        np.testing.assert_allclose(np.asarray(p2[:, :2]), np.asarray(p1),
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(np.asarray(p2[:, 2:]), np.asarray(p1),
+                                   rtol=1e-5, atol=1e-6)
 
 
 class TestArtifacts:

@@ -122,7 +122,7 @@ class TestNonBilinearCorrected:
         # every parameter participates — in particular the decoder's
         # transpose kernel / unpool-fed convs get nonzero gradient.
         # Conv biases are excluded: they cancel analytically under
-        # train-mode BatchNorm (docs/MIGRATION.md, PERFORMANCE.md r3.7).
+        # train-mode BatchNorm (docs/MIGRATION.md).
         zero = [jax.tree_util.keystr(k) for k, g in leaves
                 if float(jnp.max(jnp.abs(g))) == 0.0
                 and not jax.tree_util.keystr(k).endswith("['b']")]

@@ -1,5 +1,7 @@
 """Native C++ gather kernels vs numpy oracles."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -80,3 +82,15 @@ class TestDatasetIntegration:
             ]
         ).astype(np.float32)
         np.testing.assert_allclose(batch["image"], want, rtol=1e-6)
+
+
+def test_library_keyed_on_source_hash(tmp_path, monkeypatch):
+    """Only a build of this very gather.cc is loaded: the library name
+    carries the source hash, so an edited source gets a new file."""
+    path = _native._lib_path()
+    assert path.startswith(os.path.join(os.path.dirname(_native.__file__),
+                                        "build", "libmimo_gather-"))
+    src = tmp_path / "gather.cc"
+    src.write_bytes(open(_native._SRC, "rb").read() + b"\n// edited\n")
+    monkeypatch.setattr(_native, "_SRC", str(src))
+    assert _native._lib_path() != path

@@ -213,6 +213,29 @@ class TestCheckpoint:
         )
 
 
+    @pytest.mark.parametrize("kind", ["mimo", "evidential"])
+    def test_hparams_with_removed_fields_load(self, tmp_path, kind):
+        """An hparams.json written before an option was removed (here the
+        removed kernel-layer switch, tests/data/) still loads: unknown keys
+        are dropped, the state restores."""
+        import json
+        import shutil
+
+        from mimo_unet_tpu.train.checkpoint import _task_from_hparams
+
+        old = os.path.join(os.path.dirname(__file__), "data",
+                           f"old_hparams_{kind}.json")
+        with open(old) as f:
+            task = _task_from_hparams(json.load(f))
+        state = task.init_state(10)
+        path = os.path.join(tmp_path, "old")
+        save_checkpoint(path, state, task.hparams())
+        shutil.copy(old, os.path.join(path, "hparams.json"))
+        task2, state2 = load_checkpoint(path, steps_per_epoch=10)
+        assert task2 == task and task2.filter_base_count == 4
+        for a, b in zip(jax.tree.leaves(state), jax.tree.leaves(state2)):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
     def test_async_manager_roundtrip(self, rng, tmp_path):
         """Back-to-back async dispatches (last while a previous last may
         still be in flight, then best) land durably and restore equal."""
@@ -373,8 +396,7 @@ class TestTrainerEndToEnd:
         np.testing.assert_array_equal(np.asarray(got2), want)
 
     def test_partial_device_cache_epoch_is_permutation(self):
-        """PartialDeviceDataset: pin-what-fits capacity fallback (VERDICT
-        r4 missing #2).  Every row must be visited exactly once per epoch,
+        """PartialDeviceDataset: pin-what-fits capacity fallback.  Every row must be visited exactly once per epoch,
         cached batches must be full-size on-chip gathers, and the cached
         subset must respect the byte budget."""
         from mimo_unet_tpu.data.core import ArrayDataset, PartialDeviceDataset
